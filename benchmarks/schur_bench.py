@@ -11,8 +11,8 @@ import time
 
 import numpy as np
 
-from arnoldimethod_tpu.dense import local_schur
-from arnoldimethod_tpu.dense import native
+from arnoldimethod_jax.dense import local_schur
+from arnoldimethod_jax.dense import native
 
 
 def hessenberg(rng, n):

@@ -17,7 +17,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from arnoldimethod_tpu import (
+from arnoldimethod_jax import (
     ShiftInvertDenseOperator,
     TridiagonalShiftInvertOperator,
     partial_eigen,

@@ -1,6 +1,5 @@
-"""SpMV format shoot-out on the 2-D Laplacian: DIA vs ELL vs stencil
-(XLA) vs stencil (Pallas) — the north-star nnz/s/chip metric
-(BASELINE.json)."""
+"""SpMV format shoot-out on the 2-D Laplacian: DIA vs ELL vs stencil —
+nnz/s per device (BASELINE.json)."""
 
 import os
 import sys
@@ -13,7 +12,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from arnoldimethod_tpu.models.problems import laplacian_2d
+from arnoldimethod_jax.models.problems import laplacian_2d
 
 
 def bench_op(label, op, iters=100):

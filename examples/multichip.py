@@ -1,5 +1,5 @@
-"""Row-sharded solve over all visible devices (runs on a real pod slice or
-on a virtual CPU mesh: XLA_FLAGS=--xla_force_host_platform_device_count=8
+"""Row-sharded solve over all visible devices (runs on several GPUs or on
+a virtual CPU mesh: XLA_FLAGS=--xla_force_host_platform_device_count=8
 JAX_PLATFORMS=cpu)."""
 
 import os
@@ -10,9 +10,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-from arnoldimethod_tpu import partial_schur
-from arnoldimethod_tpu.models import laplacian_2d
-from arnoldimethod_tpu.parallel import basis_sharding, make_mesh, shard_operator
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models import laplacian_2d
+from arnoldimethod_jax.parallel import basis_sharding, make_mesh, shard_operator
 
 mesh = make_mesh()
 print(f"mesh: {mesh.devices.size} x {jax.devices()[0].platform}")

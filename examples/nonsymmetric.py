@@ -5,19 +5,18 @@ central-difference convection gives complex-conjugate eigenvalue pairs —
 yet normal, so its eigenproblem stays well-conditioned at any n.  The
 :LM edge of its spectrum clusters quadratically, which interval filters
 cannot separate once convection tilts the spectrum into an ellipse
-(docs/transforms.md "nonsymmetric spectra"); the TPU-native recipe is a
-circulant shift-invert whose two FFT passes run entirely on device
+(docs/transforms.md "nonsymmetric spectra"); the recipe is a circulant
+shift-invert whose two FFT passes run entirely on device
 (`CirculantShiftInvertOperator`): Krylov-Schur on (A - sigma I)^{-1}
 magnifies the cluster gaps by 1/|lambda - sigma|^2.
 
-This is the n=65,536 version of the bench `conv1m` phase (n=1,048,576 —
-converged on one chip in 7 restarts / 114 matvecs, eigenvalue accuracy
-4.6e-5 against the exact DFT symbol).
+This is the n=65,536 version of the bench `conv1m` phase and of
+`chip_smoke.py`'s `nonsym` phase (n=1,048,576).
 
 Reference framing: the reference is spectrum-agnostic at any n its
 memory holds (/root/reference/src/run.jl:269-371) but has no
 acceleration story; this recipe is how the same nonsymmetric problem
-runs at production scale on TPU.
+runs at production scale on the GPU.
 """
 
 import os
@@ -27,13 +26,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from arnoldimethod_tpu import (
+from arnoldimethod_jax import (
     CirculantShiftInvertOperator,
     partial_schur,
     power_bound,
     rayleigh_ritz,
 )
-from arnoldimethod_tpu.models import convection_diffusion_periodic_2d
+from arnoldimethod_jax.models import convection_diffusion_periodic_2d
 
 N, s, cx, cy = 256, 0.13, 0.15, 0.08
 op = convection_diffusion_periodic_2d(N, cx=cx, cy=cy, scale=s)

@@ -1,4 +1,4 @@
-"""Quickstart: the reference README example, TPU-native.
+"""Quickstart: the reference README example.
 
 Computes the 10 smallest-real-part eigenvalues of the 100x100 1-D
 Laplacian to tol=1e-6 (ref: readme.md:24-60 — converges in ~160-190
@@ -12,8 +12,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from arnoldimethod_tpu import partial_eigen, partial_schur
-from arnoldimethod_tpu.models import laplacian_1d
+from arnoldimethod_jax import partial_eigen, partial_schur
+from arnoldimethod_jax.models import laplacian_1d
 
 op = laplacian_1d(100)
 decomp, history = partial_schur(op, nev=10, which="SR", tol=1e-6)

@@ -9,7 +9,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from arnoldimethod_tpu import ShiftInvertDenseOperator, partial_eigen, partial_schur
+from arnoldimethod_jax import ShiftInvertDenseOperator, partial_eigen, partial_schur
 
 n = 256
 A = (

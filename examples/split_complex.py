@@ -1,9 +1,9 @@
-"""Complex matrices on TPU: the split-complex path.
+"""Complex matrices: native complex64 and the split-complex path.
 
-TPU runtimes cannot transfer complex arrays, so `partial_schur` carries
-the Krylov basis as a real (re, im) pair on device automatically for
-complex inputs (ops/sc_expansion.py).  The complex-only :LI target —
-eigenvalues with the largest imaginary part — runs on TPU silicon.
+`partial_schur` solves complex inputs natively (complex64 Krylov basis on
+the device); `split_complex=True` carries the basis as a real (re, im)
+pair instead (ops/sc_expansion.py).  The complex-only :LI target —
+eigenvalues with the largest imaginary part — runs both ways.
 
 Run:  python examples/split_complex.py
 """
@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from arnoldimethod_tpu import partial_schur
+from arnoldimethod_jax import partial_schur
 
 rng = np.random.default_rng(0)
 n = 400
@@ -26,6 +26,9 @@ A = (
 decomp, history = partial_schur(A, nev=6, which="LI", tol=1e-5,
                                 mindim=12, maxdim=24, restarts=500)
 print(history)
+_, history_sc = partial_schur(A, nev=6, which="LI", tol=1e-5, mindim=12,
+                              maxdim=24, restarts=500, split_complex=True)
+print("split_complex=True:", history_sc)
 
 Q = np.asarray(decomp.Q)
 R = np.asarray(decomp.R)

@@ -5,7 +5,7 @@
 // tiny completely-pivoted Sylvester solves, Givens+Householder Hessenberg
 // restoration, quasi-triangular eigenvalues/eigenvectors and Ritz
 // residuals.  Semantics mirror the tested Python reference layer in
-// arnoldimethod_tpu/dense/ (which in turn documents the behavioral spec,
+// arnoldimethod_jax/dense/ (which in turn documents the behavioral spec,
 // ArnoldiMethod.jl src/schurfact.jl, schursort.jl, restore_hessenberg.jl,
 // eigvals.jl, eigenvector_uppertriangular.jl).
 //

@@ -5,10 +5,12 @@ through ctypes (no Python C API), so it is built with a direct compiler
 invocation rather than setuptools' Extension machinery.  The build is
 best-effort: without a C++ toolchain the wheel ships pure-Python and the
 solver uses the numpy dense layer (identical semantics, tested in CI with
-ARNOLDI_TPU_NATIVE=0).  The source file is always bundled so an installed
-package can rebuild at import time (see arnoldimethod_tpu/dense/native.py).
+ARNOLDI_NATIVE=0).  The library's file name carries the source's SHA-256,
+as arnoldimethod_jax/dense/native.py expects; the source file is always
+bundled so an installed package can rebuild at import time.
 """
 
+import hashlib
 import shutil
 import subprocess
 import sys
@@ -19,7 +21,7 @@ from setuptools.command.build_py import build_py
 
 ROOT = Path(__file__).parent
 SRC = ROOT / "native" / "arnoldi_dense.cpp"
-PKG_DENSE = Path("arnoldimethod_tpu") / "dense"
+PKG_DENSE = Path("arnoldimethod_jax") / "dense"
 
 
 class BuildPyWithNative(build_py):
@@ -31,17 +33,18 @@ class BuildPyWithNative(build_py):
         shutil.copy2(SRC, out_dir / SRC.name)
         cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
         if cxx is None:
-            print("arnoldimethod-tpu: no C++ compiler; skipping native core",
+            print("arnoldimethod-jax: no C++ compiler; skipping native core",
                   file=sys.stderr)
             return
-        target = out_dir / "libarnoldi_dense.so"
+        digest = hashlib.sha256(SRC.read_bytes()).hexdigest()[:16]
+        target = out_dir / f"libarnoldi_dense-{digest}.so"
         cmd = [cxx, "-O3", "-shared", "-fPIC", "-std=c++17", "-o",
                str(target), str(SRC)]
         try:
             subprocess.run(cmd, check=True)
-            print(f"arnoldimethod-tpu: built native core -> {target}")
+            print(f"arnoldimethod-jax: built native core -> {target}")
         except subprocess.CalledProcessError as exc:
-            print(f"arnoldimethod-tpu: native build failed ({exc}); "
+            print(f"arnoldimethod-jax: native build failed ({exc}); "
                   "continuing pure-Python", file=sys.stderr)
 
 

@@ -25,9 +25,9 @@ jax.distributed.initialize(
 
 import numpy as np  # noqa: E402
 
-from arnoldimethod_tpu import partial_schur  # noqa: E402
-from arnoldimethod_tpu.models.problems import laplacian_1d  # noqa: E402
-from arnoldimethod_tpu.parallel.mesh import (  # noqa: E402
+from arnoldimethod_jax import partial_schur  # noqa: E402
+from arnoldimethod_jax.models.problems import laplacian_1d  # noqa: E402
+from arnoldimethod_jax.parallel.mesh import (  # noqa: E402
     basis_sharding,
     make_pod_mesh,
     shard_operator,

@@ -1,14 +1,13 @@
-"""BSR block-sparse operator: XLA fallback and Pallas (interpret) kernels
-against a dense reference, and end-to-end through the solver."""
+"""BSR block-sparse operator: the einsum matvec against a dense reference,
+the packed layout, and end-to-end through the solver."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu import partial_schur
-from arnoldimethod_tpu.models.operators import dense_to_bsr
-from arnoldimethod_tpu.ops.bsr_pallas import bsr_matvec
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models.operators import dense_to_bsr
 
 
 def _block_matrix(rng, n, B, fill=0.3):
@@ -34,17 +33,12 @@ def test_bsr_matvec_matches_dense(B):
     y = np.asarray(op.matvec(jnp.asarray(x)))
     assert np.allclose(y, y_ref, atol=1e-10)
 
-    y_pl = np.asarray(
-        bsr_matvec(op.block_cols, op.block_dataT, jnp.asarray(x), interpret=True)
-    )[:n]
-    assert np.allclose(y_pl, y_ref, atol=1e-10)
-
 
 @pytest.mark.parametrize("nbr,KB,B", [(3, 11, 8), (5, 3, 16), (3, 9, 8)])
 def test_bsr_padding_paths(nbr, KB, B):
-    """KB not a multiple of KC=8 and nbr/nbc not multiples of 8 exercise
-    the KC-chunk padding and the 8-sublane padding branches."""
-    from arnoldimethod_tpu.models.operators import BsrOperator
+    """Odd block counts and duplicate-column slots (whose values add)
+    against the dense matrix the blocks describe."""
+    from arnoldimethod_jax.models.operators import BsrOperator
 
     rng = np.random.default_rng(3)
     kb_eff = min(KB, nbr)
@@ -58,39 +52,32 @@ def test_bsr_padding_paths(nbr, KB, B):
     block_cols = block_cols.astype(np.int32)
     block_data = rng.standard_normal((nbr, KB, B, B))
     n = nbr * B
-    op_e = BsrOperator(block_cols, block_data, (n, n), use_pallas=False)
+    op_e = BsrOperator(block_cols, block_data, (n, n))
     x = jnp.asarray(rng.standard_normal(n))
     y_e = np.asarray(op_e.matvec(x))
-    y_p = np.asarray(
-        bsr_matvec(op_e.block_cols, op_e.block_dataT, x, interpret=True)
-    )[:n]
-    assert np.allclose(y_p, y_e, atol=1e-10)
-
-
-def test_bsr_vmem_budget_fallback(monkeypatch):
-    """Above the VMEM budget, auto-select silently uses einsum; an explicit
-    use_pallas=True raises a clear error instead of a Mosaic OOM."""
-    from arnoldimethod_tpu.models.operators import BsrOperator
-    from arnoldimethod_tpu.ops import bsr_pallas
-
-    rng = np.random.default_rng(4)
-    nbr, KB, B = 8, 2, 8
-    block_cols = rng.integers(0, nbr, (nbr, KB)).astype(np.int32)
-    block_data = rng.standard_normal((nbr, KB, B, B))
-    n = nbr * B
-    x = jnp.asarray(rng.standard_normal(n))
-    monkeypatch.setattr(bsr_pallas, "VMEM_BUDGET_BYTES", 16)
-    op_auto = BsrOperator(block_cols, block_data, (n, n))
-    y = np.asarray(op_auto.matvec(x))  # einsum fallback, no error
     A = np.zeros((n, n))
     for i in range(nbr):
         for k in range(KB):
             c = block_cols[i, k]
             A[i * B : (i + 1) * B, c * B : (c + 1) * B] += block_data[i, k]
-    assert np.allclose(y, A @ np.asarray(x), atol=1e-10)
-    op_forced = BsrOperator(block_cols, block_data, (n, n), use_pallas=True)
-    with pytest.raises(ValueError, match="VMEM"):
-        op_forced.matvec(x)
+    assert np.allclose(y_e, A @ np.asarray(x), atol=1e-10)
+    assert op_e.nnz == nbr * KB * B * B
+
+
+def test_pack_bsr_layout():
+    """pack_bsr stores every block transposed (the einsum's operand
+    layout) with int32 column indices; block_data undoes the transpose."""
+    from arnoldimethod_jax.models.operators import BsrOperator, pack_bsr
+
+    rng = np.random.default_rng(4)
+    nbr, KB, B = 3, 2, 4
+    block_cols = rng.integers(0, nbr, (nbr, KB))
+    block_data = rng.standard_normal((nbr, KB, B, B))
+    cols, dataT = pack_bsr(block_cols, block_data)
+    assert cols.dtype == np.int32 and dataT.shape == (nbr, KB, B, B)
+    assert np.array_equal(dataT[1, 0], block_data[1, 0].T)
+    op = BsrOperator(block_cols, block_data, (nbr * B, nbr * B))
+    assert np.array_equal(np.asarray(op.block_data), block_data)
 
 
 @pytest.mark.slow
@@ -119,7 +106,7 @@ def test_csr_to_bsr_roundtrip(n, B):
     """CsrOperator.to_bsr re-blocks into the roofline BSR format exactly,
     including n not a multiple of the block size (x padded internally,
     spectrum untouched)."""
-    from arnoldimethod_tpu.models.operators import CsrOperator
+    from arnoldimethod_jax.models.operators import CsrOperator
 
     rng = np.random.default_rng(9)
     A = np.zeros((n, n))
@@ -136,7 +123,7 @@ def test_csr_to_bsr_roundtrip(n, B):
         vals.append(A[i, nz])
         indptr.append(indptr[-1] + len(nz))
     op = CsrOperator(np.asarray(indptr), np.concatenate(idx), np.concatenate(vals), (n, n))
-    bop = op.to_bsr(block_size=B, use_pallas=False)
+    bop = op.to_bsr(block_size=B)
     assert bop.shape == (n, n)
     assert bop.fill_ratio >= 1.0
     x = rng.standard_normal(n)
@@ -144,18 +131,11 @@ def test_csr_to_bsr_roundtrip(n, B):
     assert y.shape == (n,)
     assert np.allclose(y, A @ x, atol=1e-10)
 
-    # interpret-mode Pallas agrees too
-    from arnoldimethod_tpu.ops.bsr_pallas import bsr_matvec
-    nbc = -(-n // B)
-    xp = jnp.pad(jnp.asarray(x), (0, nbc * B - n))
-    y_p = np.asarray(bsr_matvec(bop.block_cols, bop.block_dataT, xp, interpret=True))[:n]
-    assert np.allclose(y_p, A @ x, atol=1e-10)
-
 
 def test_csr_to_bsr_through_solver():
     """End-to-end: an irregular CSR matrix re-blocked to BSR solves to the
     same spectrum as the CSR original."""
-    from arnoldimethod_tpu.models.operators import CsrOperator
+    from arnoldimethod_jax.models.operators import CsrOperator
 
     rng = np.random.default_rng(11)
     n = 120
@@ -170,7 +150,7 @@ def test_csr_to_bsr_through_solver():
         vals.append(A[i, nz])
         indptr.append(indptr[-1] + len(nz))
     op = CsrOperator(np.asarray(indptr), np.concatenate(idx), np.concatenate(vals), (n, n))
-    bop = op.to_bsr(block_size=32, use_pallas=False)
+    bop = op.to_bsr(block_size=32)
     d1, h1 = partial_schur(op, nev=4, which="LM", tol=1e-9)
     d2, h2 = partial_schur(bop, nev=4, which="LM", tol=1e-9)
     assert h1.converged and h2.converged
@@ -179,14 +159,3 @@ def test_csr_to_bsr_through_solver():
         atol=1e-8,
     )
 
-
-def test_bsr_matvec_rejects_unpacked_operands():
-    """bsr_matvec demands pack_bsr-packed operands; silent truncation of
-    trailing KB slots is a regression this guards against."""
-    from arnoldimethod_tpu.ops.bsr_pallas import bsr_matvec
-
-    rng = np.random.default_rng(0)
-    bc = jnp.asarray(rng.integers(0, 8, (8, 12)).astype(np.int32))
-    bd = jnp.asarray(rng.standard_normal((8, 12, 8, 8)).astype(np.float32))
-    with pytest.raises(ValueError, match="packed"):
-        bsr_matvec(bc, bd, jnp.ones(64, jnp.float32), interpret=True)

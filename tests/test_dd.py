@@ -12,7 +12,7 @@ from fractions import Fraction
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu.ops.dd import (
+from arnoldimethod_jax.ops.dd import (
     DD,
     DD_EPS,
     dd_collapse,
@@ -74,7 +74,7 @@ def test_dd_numpy_interop():
 def test_dd_local_schur_orthogonality():
     """Francis QR on DD object arrays: Q orthogonal to ~1e-30 (exact
     rational check), similarity preserved to the same level."""
-    from arnoldimethod_tpu.dense.schur import local_schur
+    from arnoldimethod_jax.dense.schur import local_schur
 
     rng = np.random.default_rng(2)
     m = 12
@@ -100,8 +100,8 @@ def test_extended_f64_dd_tol_1e26():
     (rational-arithmetic) Schur residual below 1e-26 and double-double
     orthonormality.  Reference parity: readme.md:81-105 converges
     tol=1e-28 in 442 matvecs; this config measures ~430-460."""
-    from arnoldimethod_tpu import partial_schur
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    from arnoldimethod_jax import partial_schur
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(100, dtype=np.float64)
     d, h = partial_schur(op, nev=10, which="SR", tol=1e-26, extended=True)
@@ -133,8 +133,8 @@ def test_extended_f32_words_unchanged():
     — the dd path must not engage and the solve must still converge."""
     import jax.numpy as jnp
 
-    from arnoldimethod_tpu import partial_schur
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    from arnoldimethod_jax import partial_schur
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(64, dtype=np.float32)
     d, h = partial_schur(op, nev=6, which="SR", tol=1e-11, extended=True)
@@ -147,8 +147,8 @@ def test_dd_workspace_resume_keeps_low_words():
     loop and resume the locked block from BOTH words — storing only the
     hi words made a resumed solve certify tol~1e-28 against a relation
     whose locked block was only f64-accurate (~1e-16 backward error)."""
-    from arnoldimethod_tpu import ArnoldiWorkspace, partial_schur
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    from arnoldimethod_jax import ArnoldiWorkspace, partial_schur
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(100, dtype=np.float64)
     ws = ArnoldiWorkspace(100, maxdim=30, dtype=np.float64)

@@ -7,16 +7,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu.dense.device import (
+from arnoldimethod_jax.dense.device import (
     eigenvalues_jax,
     givens_jax,
     local_schur_jax,
     residuals_jax,
 )
-from arnoldimethod_tpu.dense.rotations import givens
-from arnoldimethod_tpu.dense.schur import local_schur
-from arnoldimethod_tpu.dense.eig import eigenvalues
-from arnoldimethod_tpu.driver import _copy_residuals
+from arnoldimethod_jax.dense.rotations import givens
+from arnoldimethod_jax.dense.schur import local_schur
+from arnoldimethod_jax.dense.eig import eigenvalues
+from arnoldimethod_jax.driver import _copy_residuals
 
 
 def _random_hessenberg(m, seed, shape_rows=None):
@@ -158,21 +158,21 @@ def test_local_schur_known_spectrum():
 
 # --- Swaps / partition / sort / restore vs numpy twins ----------------------
 
-from arnoldimethod_tpu.dense.device import (
+from arnoldimethod_jax.dense.device import (
     partition_three_way_jax,
     restore_arnoldi_jax,
     rotate_right_jax,
     sort_schur_jax,
     swap_jax,
 )
-from arnoldimethod_tpu.dense.swaps import (
+from arnoldimethod_jax.dense.swaps import (
     is_start_of_11_block,
     rotate_right,
     swap,
 )
-from arnoldimethod_tpu.dense.restore import restore_arnoldi
-from arnoldimethod_tpu.driver import _partition_three_way, _sort_schur
-from arnoldimethod_tpu.targets import get_order, as_target
+from arnoldimethod_jax.dense.restore import restore_arnoldi
+from arnoldimethod_jax.driver import _partition_three_way, _sort_schur
+from arnoldimethod_jax.targets import get_order, as_target
 
 
 def _quasi_schur(m, seed, pair_positions=()):

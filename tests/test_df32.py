@@ -1,6 +1,6 @@
 """Double-word float32 arithmetic (ops/df32.py): error-free transforms
 survive compilation, and the compound kernels reach ~f64 accuracy from
-pure f32 ops — the TPU-native extended-precision building blocks
+pure f32 ops — the double-word extended-precision building blocks
 (reference analogue: Double64 runs, readme.md:81-99)."""
 
 import numpy as np
@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu.ops import df32
+from arnoldimethod_jax.ops import df32
 
 f32 = jnp.float32
 
@@ -100,7 +100,7 @@ def test_df32_cgs2_orthogonality():
     Vh[0] = v.astype(np.float32)
     Vl[0] = (v - Vh[0].astype(np.float64)).astype(np.float32)
     for j in range(1, m):
-        # The matvec itself stays plain f32 (as the SpMV would on TPU).
+        # The matvec itself stays plain f32 (as the SpMV does on device).
         w = jnp.asarray(A @ Vh[j - 1])
         sh, sl = df_cgs2(jnp.asarray(Vh[:j]), jnp.asarray(Vl[:j]), w)
         Vh[j], Vl[j] = np.asarray(sh), np.asarray(sl)

@@ -6,7 +6,7 @@ the middle, and eigenvalue extraction on subranges."""
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu.dense import collect_eigen, copy_eigenvalues, eigenvalues
+from arnoldimethod_jax.dense import collect_eigen, copy_eigenvalues, eigenvalues
 from utils import realimag_sort
 
 

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu.models.operators import DenseOperator
-from arnoldimethod_tpu.ops.expansion import (
+from arnoldimethod_jax.models.operators import DenseOperator
+from arnoldimethod_jax.ops.expansion import (
     expand_range,
     set_initial_vector,
     set_random_vector,
@@ -113,7 +113,7 @@ def test_tiled_basis_change_matches_plain():
     double-buffer) is exact tile-for-tile vs the one-GEMM path."""
     import jax
     import jax.numpy as jnp
-    from arnoldimethod_tpu.ops import expansion as E
+    from arnoldimethod_jax.ops import expansion as E
 
     k1, k2 = jax.random.split(jax.random.PRNGKey(3))
     V = jax.random.normal(k1, (9, 48), dtype=jnp.float32)
@@ -130,7 +130,7 @@ def test_tiled_basis_change_matches_plain():
 def test_pick_tiles_bounded():
     """pick_tiles keeps each tile under ~256 MB WITHOUT requiring a
     divisor of n — for prime n it must not degenerate toward n tiles."""
-    from arnoldimethod_tpu.ops.expansion import pick_tiles
+    from arnoldimethod_jax.ops.expansion import pick_tiles
 
     for n in (1 << 24, 10_240_000, 10_000_019, 96):  # incl. a prime
         t = pick_tiles(n, 201 * 4)
@@ -142,13 +142,13 @@ def test_pick_tiles_bounded():
 def test_driver_tiled_threshold_solve(monkeypatch):
     """Force the tiled path through the full driver and check solver
     equivalence with the plain path (same matvecs, same spectrum)."""
-    from arnoldimethod_tpu import driver
-    from arnoldimethod_tpu.models.problems import laplacian_1d
-    from arnoldimethod_tpu import partial_schur
+    from arnoldimethod_jax import driver
+    from arnoldimethod_jax.models.problems import laplacian_1d
+    from arnoldimethod_jax import partial_schur
 
     op = laplacian_1d(96)
     d0, h0 = partial_schur(op, nev=6, which="SR", tol=1e-8, method="host")
-    monkeypatch.setattr(driver, "TILED_THRESHOLD_BYTES", 1)
+    monkeypatch.setattr(driver, "tiled_threshold_bytes", lambda device: 1)
     d1, h1 = partial_schur(op, nev=6, which="SR", tol=1e-8, method="host")
     assert h1.converged
     assert h1.mvproducts == h0.mvproducts
@@ -158,11 +158,11 @@ def test_driver_tiled_threshold_solve(monkeypatch):
 
 
 def test_sliced_expansion_dispatch(monkeypatch):
-    """Expansion dispatches are sliced to bounded predicted duration (TPU
-    watchdog, see ops/expansion.py DISPATCH_BUDGET_S).  Forcing 1-step
+    """Expansion dispatches are sliced to bounded predicted duration (the
+    dispatch-size heuristic, ops/expansion.py DISPATCH_BUDGET_S).  Forcing 1-step
     slices must not change the algorithm: identical matvecs/spectrum."""
-    from arnoldimethod_tpu import driver, partial_schur
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    from arnoldimethod_jax import driver, partial_schur
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(80)
     d0, h0 = partial_schur(op, nev=6, which="SR", tol=1e-8, method="host")
@@ -173,3 +173,38 @@ def test_sliced_expansion_dispatch(monkeypatch):
     assert np.allclose(
         np.sort(d1.eigenvalues.real), np.sort(d0.eigenvalues.real), atol=1e-9
     )
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("limit", [80 * 10**9, 16 * 2**30])
+def test_tiled_threshold_from_memory_stats(limit):
+    """The basis change tiles when two copies of V would exceed half of
+    the device's bytes_limit, i.e. above a quarter of it."""
+    from arnoldimethod_jax.ops.expansion import tiled_threshold_bytes
+
+    dev = _FakeDevice("gpu", {"bytes_limit": limit, "bytes_in_use": 0})
+    assert tiled_threshold_bytes(dev) == limit // 4
+
+
+def test_tiled_threshold_requires_memory_stats():
+    """A device without allocator statistics is an error, not a guess —
+    except a CPU device, whose arrays live in host memory."""
+    import os
+
+    from arnoldimethod_jax.ops.expansion import tiled_threshold_bytes
+
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        tiled_threshold_bytes(_FakeDevice("gpu", None))
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        tiled_threshold_bytes(_FakeDevice("gpu", {"bytes_in_use": 1}))
+    host = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert tiled_threshold_bytes(_FakeDevice("cpu", None)) == host // 4
+    assert tiled_threshold_bytes(jax.devices()[0]) == host // 4

@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu import partial_schur
-from arnoldimethod_tpu.models.problems import laplacian_1d
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models.problems import laplacian_1d
 
 
 def _laplacian_dense(n):
@@ -58,7 +58,7 @@ def test_extended_matches_plain_spectrum():
 def test_extended_fallback_without_matvec_df():
     """Operators without matvec_df still run (two plain matvecs): the
     solve works, floored at the single-word SpMV accuracy."""
-    from arnoldimethod_tpu.models.operators import DenseOperator
+    from arnoldimethod_jax.models.operators import DenseOperator
 
     n = 48
     A = _laplacian_dense(n).astype(np.float32)
@@ -92,11 +92,11 @@ def test_extended_stencil_2d():
     second copy emerges far too slowly for a small test budget — a
     property of the algorithm (the reference behaves the same in exact
     arithmetic), not of this implementation."""
-    from arnoldimethod_tpu.models.operators import Stencil5Operator
+    from arnoldimethod_jax.models.operators import Stencil5Operator
 
     ny = nx = 16
     op = Stencil5Operator((4.6, -1.0, -1.0, -1.3, -1.3), (ny, nx),
-                          dtype=np.float32, use_pallas=False)
+                          dtype=np.float32)
     decomp, history = partial_schur(
         op, nev=4, which="SR", tol=1e-11, extended=True
     )
@@ -117,7 +117,7 @@ def test_extended_warm_start_keeps_double_word_accuracy():
     run, so a warm start (start_from=nconverged) resumes and finishes at
     double-word accuracy — the reference's partialschur! resume story at
     Double64-class precision."""
-    from arnoldimethod_tpu import ArnoldiWorkspace
+    from arnoldimethod_jax import ArnoldiWorkspace
 
     n = 80
     op = laplacian_1d(n, dtype=np.float32)
@@ -148,7 +148,7 @@ def test_extended_sharded_mesh():
     residuals distributed."""
     import jax
 
-    from arnoldimethod_tpu.parallel.mesh import (
+    from arnoldimethod_jax.parallel.mesh import (
         basis_sharding,
         make_mesh,
         shard_operator,
@@ -173,7 +173,7 @@ def test_extended_exact_breakdown_reinit():
     the df DGKS must detect the EXACT zero residual vector as breakdown
     (df_norm(0) must be 0, not NaN) and reinitialize — regression for a
     0/0 NaN that crashed the extended path where the plain path worked."""
-    from arnoldimethod_tpu.models.operators import DiaOperator
+    from arnoldimethod_jax.models.operators import DiaOperator
 
     n = 32
     diag = np.linspace(1.0, 4.0, n).astype(np.float32)

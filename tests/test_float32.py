@@ -1,4 +1,4 @@
-"""End-to-end float32 coverage: the TPU device dtype, exercised on the CPU
+"""End-to-end float32 coverage: the GPU production dtype, exercised on the CPU
 mesh with appropriately scaled tolerances (analogue of the reference's
 multi-eltype sweep, test/schur_to_eigen.jl:7-25).
 
@@ -8,12 +8,18 @@ convergence criterion rs <= max(eps_work * ||H||_F, tol * |lam|)
 so tol below ~1e-6 relative buys nothing — see docs/precision.md.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu import ArnoldiWorkspace, partial_eigen, partial_schur
-from arnoldimethod_tpu.models.problems import laplacian_1d
+from arnoldimethod_jax import ArnoldiWorkspace, partial_eigen, partial_schur
+from arnoldimethod_jax.models.problems import laplacian_1d
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -33,7 +39,7 @@ def _laplacian_dense(n):
 
 
 def test_readme_parity_f32():
-    """The README config in the actual TPU dtype: converges in the same
+    """The README config in float32: converges in the same
     matvec ballpark with residual at the f32 criterion floor."""
     op = laplacian_1d(100, dtype=np.float32)
     decomp, history = partial_schur(op, nev=10, which="SR", tol=1e-6)
@@ -113,3 +119,32 @@ def test_f32_tol_floor_documented():
     A = _laplacian_dense(100)
     assert history.nconverged >= 4
     assert _residual(A, decomp) < 1e-4
+
+
+def test_device_dense_float64_without_x64():
+    """With JAX's default x64 off, the fused restart still does its dense
+    arithmetic in float64: the float32 README solve matches the host
+    method's Schur residual (the float32 dense version drifted past the
+    5e-6 bound).  Child process: this suite turns x64 on for itself."""
+    code = """
+import jax, numpy as np
+jax.config.update("jax_platforms", "cpu")
+assert not jax.config.jax_enable_x64
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models.problems import laplacian_1d
+A = np.diag(np.full(100, 2.0)) - np.eye(100, k=1) - np.eye(100, k=-1)
+res = []
+for method in ("host", "device"):
+    d, h = partial_schur(laplacian_1d(100, dtype=np.float32), nev=10,
+                         which="SR", tol=1e-6, method=method)
+    assert h.converged and d.Q_rows.dtype == np.float32
+    Q = np.asarray(d.Q, np.float64)
+    res.append(np.linalg.norm(A @ Q - Q @ np.asarray(d.R)))
+assert res[1] <= 5e-6 and abs(res[1] - res[0]) <= 1e-9, res
+assert not jax.config.jax_enable_x64
+"""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    env.pop("JAX_ENABLE_X64", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]

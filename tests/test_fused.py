@@ -8,7 +8,7 @@ import pytest
 pytestmark = pytest.mark.slow  # m=20 lax.while_loop compiles dominate suite wall-clock
 import jax.numpy as jnp
 
-from arnoldimethod_tpu import partial_schur
+from arnoldimethod_jax import partial_schur
 
 EPS = np.finfo(np.float64).eps
 
@@ -34,7 +34,7 @@ def _check(A, decomp, tol):
 
 
 def test_device_matches_host_readme():
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(100)
     d0, h0 = partial_schur(op, nev=10, which="SR", tol=1e-6, method="host")
@@ -105,8 +105,8 @@ def test_device_purge_path():
 
 
 def test_device_f32():
-    """The production TPU configuration: f32 end-to-end in the fused loop."""
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    """The production configuration: f32 end-to-end in the fused loop."""
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(100, dtype=np.float32)
     d, h = partial_schur(op, nev=10, which="SR", tol=1e-6, method="device")
@@ -123,7 +123,7 @@ def test_device_warm_start():
     """Warm start / resume through the fused path: compute 3 eigenvalues,
     then continue from the locked decomposition for 5 (run.jl:131-179
     semantics, ref: test/partial_schur.jl:122-138)."""
-    from arnoldimethod_tpu import ArnoldiWorkspace
+    from arnoldimethod_jax import ArnoldiWorkspace
 
     rng = np.random.default_rng(7)
     A = rng.standard_normal((100, 100))
@@ -146,7 +146,7 @@ def test_device_warm_start():
 def test_device_warm_start_crosses_methods():
     """A host-path decomposition resumes through the device path and
     vice versa (the workspace is the portable checkpoint)."""
-    from arnoldimethod_tpu import ArnoldiWorkspace
+    from arnoldimethod_jax import ArnoldiWorkspace
 
     rng = np.random.default_rng(9)
     A = rng.standard_normal((100, 100))
@@ -182,8 +182,8 @@ def test_device_method_on_mesh():
     (GSPMD partitions the expansion; the dense while_loop stays
     replicated), with identical matvec counts to single-device."""
     import jax
-    from arnoldimethod_tpu.models.problems import laplacian_1d
-    from arnoldimethod_tpu.parallel import (
+    from arnoldimethod_jax.models.problems import laplacian_1d
+    from arnoldimethod_jax.parallel import (
         basis_sharding,
         make_mesh,
         shard_operator,
@@ -231,12 +231,12 @@ def test_device_target_non_dominant():
 
 
 def test_device_chunked_dispatch_resume(monkeypatch):
-    """The restart loop is dispatched in bounded-duration chunks (the TPU
-    worker dies on single executions past ~2 minutes — fused.py module
-    docstring).  Force 1-restart chunks and check the chunk-resume state
+    """The restart loop is dispatched in bounded-duration chunks (the
+    dispatch-size heuristic, fused.py module docstring).  Force
+    1-restart chunks and check the chunk-resume state
     threading is exact: same matvecs/spectrum as one big dispatch."""
-    from arnoldimethod_tpu import fused
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    from arnoldimethod_jax import fused
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(64)
     d0, h0 = partial_schur(op, nev=6, which="SR", tol=1e-8, method="device")

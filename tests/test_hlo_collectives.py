@@ -15,12 +15,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu.models.problems import laplacian_1d
-from arnoldimethod_tpu.ops.expansion import (
+from arnoldimethod_jax.models.problems import laplacian_1d
+from arnoldimethod_jax.ops.expansion import (
     apply_basis_change,
     truncate_and_expand,
 )
-from arnoldimethod_tpu.parallel.mesh import (
+from arnoldimethod_jax.parallel.mesh import (
     basis_sharding,
     make_mesh,
     replicated_sharding,

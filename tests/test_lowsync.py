@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu import partial_schur
-from arnoldimethod_tpu.models.problems import laplacian_1d
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models.problems import laplacian_1d
 
 
 def test_lowsync_matches_dgks():
@@ -63,11 +63,11 @@ def test_lowsync_rejects_incompatible_modes():
 def test_lowsync_fewer_all_reduces_in_hlo():
     """The point of the variant: the compiled sharded expansion contains
     FEWER all-reduce ops than the DGKS path (2 per step vs 3-5)."""
-    from arnoldimethod_tpu.ops.expansion import (
+    from arnoldimethod_jax.ops.expansion import (
         expand_range_impl,
         expand_range_lowsync_impl,
     )
-    from arnoldimethod_tpu.parallel.mesh import (
+    from arnoldimethod_jax.parallel.mesh import (
         basis_sharding,
         make_mesh,
         replicated_sharding,
@@ -99,7 +99,7 @@ def test_lowsync_fewer_all_reduces_in_hlo():
 def test_lowsync_sharded_solve():
     """The low-sync expansion runs distributed and matches the exact
     spectrum (its two reductions are the psums the variant optimizes)."""
-    from arnoldimethod_tpu.parallel.mesh import (
+    from arnoldimethod_jax.parallel.mesh import (
         basis_sharding,
         make_mesh,
         shard_operator,

@@ -5,20 +5,20 @@ and complex dtypes."""
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu.dense import native
-from arnoldimethod_tpu.dense import (
+from arnoldimethod_jax.dense import native
+from arnoldimethod_jax.dense import (
     copy_eigenvalues,
     local_schur,
     restore_arnoldi,
     rotate_right,
 )
-from arnoldimethod_tpu.dense.swaps import is_start_of_11_block
-from arnoldimethod_tpu.driver import (
+from arnoldimethod_jax.dense.swaps import is_start_of_11_block
+from arnoldimethod_jax.driver import (
     _copy_residuals,
     _partition_three_way,
     _sort_schur,
 )
-from arnoldimethod_tpu.targets import get_order
+from arnoldimethod_jax.targets import get_order
 from utils import normal_hessenberg_matrix, realimag_sort
 
 pytestmark = pytest.mark.skipif(
@@ -139,8 +139,8 @@ def test_restore_and_residuals_match(dtype):
 def test_full_solver_native_vs_numpy(monkeypatch):
     """End to end: the solver gives identical results with the native and
     numpy dense layers (identical RNG, identical arithmetic)."""
-    import arnoldimethod_tpu.driver as drv
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    import arnoldimethod_jax.driver as drv
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(80)
     d_nat, h_nat = drv.partial_schur(op, nev=4, which="SR", tol=1e-8)

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu import partial_schur
-from arnoldimethod_tpu.models import (
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models import (
     DenseOperator,
     FunctionOperator,
     ShiftInvertDenseOperator,
@@ -129,7 +129,7 @@ def test_shift_invert_dense():
 def test_csr_operator_matvec_and_solve():
     """First-class CSR: exact matvec on irregular row lengths (incl. an
     empty row), ELL round-trip, and end-to-end partial_schur."""
-    from arnoldimethod_tpu import CsrOperator
+    from arnoldimethod_jax import CsrOperator
 
     rng = np.random.default_rng(3)
     n = 40
@@ -165,7 +165,7 @@ def test_as_operator_scipy_sparse():
     path for the reference's sprand examples (test/schur_to_eigen.jl:7-12)."""
     import scipy.sparse as sp
 
-    from arnoldimethod_tpu import CsrOperator, partial_eigen
+    from arnoldimethod_jax import CsrOperator, partial_eigen
 
     rng = np.random.default_rng(5)
     n = 100
@@ -175,7 +175,7 @@ def test_as_operator_scipy_sparse():
     )
     # Auto format selection: this scattered pattern picks SELL (1.6x the
     # CSR gather path, docs/sparse.md); sparse_format="csr" keeps CSR.
-    from arnoldimethod_tpu.models.operators import SellOperator
+    from arnoldimethod_jax.models.operators import SellOperator
 
     op = as_operator(S)
     assert isinstance(op, SellOperator)
@@ -212,9 +212,8 @@ def test_as_operator_scipy_sparse():
 
 @pytest.mark.slow
 def test_as_operator_scipy_sparse_complex_cpu():
-    """Complex sparse matrices run end-to-end on CPU backends (the
-    reference supports any eltype incl. Complex, readme.md:63-69; TPU
-    backends instead raise — see the gate in as_operator/driver)."""
+    """Complex sparse matrices run end-to-end natively (the reference
+    supports any eltype incl. Complex, readme.md:63-69)."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(0)
@@ -238,8 +237,8 @@ def test_sell_operator():
     with the CSR path."""
     import scipy.sparse as sp
 
-    from arnoldimethod_tpu import CsrOperator
-    from arnoldimethod_tpu.models import SellOperator
+    from arnoldimethod_jax import CsrOperator
+    from arnoldimethod_jax.models import SellOperator
 
     rng = np.random.default_rng(11)
     n = 300
@@ -282,7 +281,7 @@ def test_matmat_matches_matvec_csr_sell():
     """Block SpMM fast paths (K-amortized row gathers) agree with K
     separate matvecs for CSR and SELL."""
     import jax.numpy as jnp
-    from arnoldimethod_tpu.models.operators import CsrOperator
+    from arnoldimethod_jax.models.operators import CsrOperator
 
     rng = np.random.default_rng(3)
     n, K = 96, 5
@@ -313,10 +312,10 @@ def test_matmat_matches_matvec_csr_sell():
 def test_matmat_default_path():
     """LinearOperator.matmat default (lax.map) on a stencil operator."""
     import jax.numpy as jnp
-    from arnoldimethod_tpu.models.operators import Stencil5Operator
+    from arnoldimethod_jax.models.operators import Stencil5Operator
 
     op = Stencil5Operator((4.0, -1.0, -1.0, -1.0, -1.0), (8, 8),
-                          dtype=jnp.float32, use_pallas=False)
+                          dtype=jnp.float32)
     rng = np.random.default_rng(0)
     X = jnp.asarray(rng.standard_normal((64, 3)), jnp.float32)
     ref = np.stack([np.asarray(op.matvec(X[:, j])) for j in range(3)], axis=1)
@@ -329,7 +328,7 @@ def test_pick_sparse_format_hierarchy():
     scattered patterns."""
     import scipy.sparse as sp
 
-    from arnoldimethod_tpu.models.operators import pick_sparse_format
+    from arnoldimethod_jax.models.operators import pick_sparse_format
 
     # Banded: tridiagonal -> dia.
     n = 512
@@ -358,8 +357,8 @@ def test_auto_format_solves_match_csr():
     solve for each pattern class."""
     import scipy.sparse as sp
 
-    from arnoldimethod_tpu import partial_schur
-    from arnoldimethod_tpu.models.operators import (
+    from arnoldimethod_jax import partial_schur
+    from arnoldimethod_jax.models.operators import (
         DiaOperator,
         SellOperator,
         as_operator,
@@ -401,7 +400,7 @@ def test_auto_format_solves_match_csr():
 def test_csr_to_dia_exact():
     import scipy.sparse as sp
 
-    from arnoldimethod_tpu.models.operators import csr_to_dia
+    from arnoldimethod_jax.models.operators import csr_to_dia
 
     n = 40
     T = sp.diags(
@@ -417,7 +416,7 @@ def test_csr_to_dia_exact():
 
 def test_dia_from_diagonals_complex_float32_words():
     """Regression: complex values with a REAL float32 dtype request must
-    give float32 split words (the TPU word), not silently fall back to
+    give float32 split words, not silently fall back to
     float64/complex128."""
     vals = np.array([1 + 2j, 3 - 1j, 0.5j, 2.0], dtype=np.complex128)
     op = dia_from_diagonals({0: vals}, (4, 4), dtype=np.float32)
@@ -455,12 +454,3 @@ def test_as_operator_sums_duplicate_entries_in_dia():
     y = np.asarray(op.matvec(jnp.asarray(x)))
     np.testing.assert_allclose(y, A.tocsr() @ x, rtol=1e-12)
 
-
-def test_stencil_pallas_rejects_periodic():
-    """An explicitly requested Pallas stencil kernel assumes zero halos;
-    combining it with periodic wrap must fail loudly."""
-    from arnoldimethod_tpu.models.operators import Stencil5Operator
-
-    with pytest.raises(ValueError, match="dirichlet"):
-        Stencil5Operator((4, -1, -1, -1, -1), (8, 8), use_pallas=True,
-                         boundary="periodic")

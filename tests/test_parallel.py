@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu import partial_schur
-from arnoldimethod_tpu.models.problems import laplacian_1d, laplacian_2d
-from arnoldimethod_tpu.parallel import (
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models.problems import laplacian_1d, laplacian_2d
+from arnoldimethod_jax.parallel import (
     basis_sharding,
     make_mesh,
     shard_operator,
@@ -125,7 +125,7 @@ def _powerlaw_csr(n, seed=0, dtype=np.float64):
         A[i, indices[indptr[i] : indptr[i + 1]]] = data[indptr[i] : indptr[i + 1]]
     A[np.arange(n), np.arange(n)] += 3.0
     # Rebuild exact CSR from the dense form (diagonal now included).
-    from arnoldimethod_tpu.models.operators import CsrOperator
+    from arnoldimethod_jax.models.operators import CsrOperator
 
     indptr2 = [0]
     idx, vals = [], []
@@ -148,7 +148,7 @@ def test_sharded_csr_matvec_exact():
     mesh = make_mesh(8)
     sop = shard_operator(op, mesh)
 
-    from arnoldimethod_tpu.models.operators import ShardedCsrOperator
+    from arnoldimethod_jax.models.operators import ShardedCsrOperator
 
     assert isinstance(sop, ShardedCsrOperator)
     x = np.linspace(-1, 1, n)
@@ -191,7 +191,7 @@ def test_sharded_csr_partial_schur():
 def test_pod_mesh_single_host():
     """make_pod_mesh on a single host spans all visible devices with the
     same `rows` axis; the multi-host path differs only in device order."""
-    from arnoldimethod_tpu.parallel import make_pod_mesh
+    from arnoldimethod_jax.parallel import make_pod_mesh
 
     mesh = make_pod_mesh()
     assert mesh.axis_names == ("rows",)
@@ -201,7 +201,7 @@ def test_pod_mesh_single_host():
 def _banded_csr(n, bw=3, dtype=np.float64):
     """Banded sparse matrix: each shard's column footprint is only the
     ~bw boundary entries of its neighbors — the footprint-gather case."""
-    from arnoldimethod_tpu.models.operators import CsrOperator
+    from arnoldimethod_jax.models.operators import CsrOperator
 
     rng = np.random.default_rng(5)
     indptr = [0]
@@ -224,7 +224,7 @@ def _banded_csr(n, bw=3, dtype=np.float64):
 @pytest.mark.parametrize("gather", ["footprint", "all"])
 def test_sharded_csr_gather_modes_exact(gather):
     """Both communication strategies produce the exact dense matvec."""
-    from arnoldimethod_tpu.models.operators import ShardedCsrOperator
+    from arnoldimethod_jax.models.operators import ShardedCsrOperator
 
     n = 256
     A, op = _banded_csr(n)
@@ -242,7 +242,7 @@ def test_sharded_csr_gather_modes_exact(gather):
 def test_sharded_csr_auto_picks_footprint_for_banded():
     """auto selects the footprint path when the footprint is sparse (banded)
     and the all_gather path when it is dense (uniform random)."""
-    from arnoldimethod_tpu.models.operators import ShardedCsrOperator
+    from arnoldimethod_jax.models.operators import ShardedCsrOperator
 
     mesh = make_mesh(8)
     n = 256
@@ -271,7 +271,7 @@ def test_sharded_csr_footprint_comm_bytes():
     proportional to the boundary, not to n (VERDICT r2 item 5)."""
     import re
 
-    from arnoldimethod_tpu.models.operators import ShardedCsrOperator
+    from arnoldimethod_jax.models.operators import ShardedCsrOperator
 
     n = 1024
     _, op = _banded_csr(n)
@@ -302,8 +302,8 @@ def test_sharded_shift_invert_solve():
     matvec-for-matvec (docs/transforms.md 'distributing shift-invert')."""
     import numpy as np
     import jax.numpy as jnp
-    from arnoldimethod_tpu import TridiagonalShiftInvertOperator, partial_schur
-    from arnoldimethod_tpu.parallel.mesh import make_mesh, basis_sharding
+    from arnoldimethod_jax import TridiagonalShiftInvertOperator, partial_schur
+    from arnoldimethod_jax.parallel.mesh import make_mesh, basis_sharding
 
     n = 1024
     dl = np.full(n - 1, -1.0)

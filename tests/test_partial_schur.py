@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu import (
+from arnoldimethod_jax import (
     ArnoldiWorkspace,
     partial_schur,
 )
-from arnoldimethod_tpu.models.problems import laplacian_1d
+from arnoldimethod_jax.models.problems import laplacian_1d
 
 EPS = np.finfo(np.float64).eps
 
@@ -232,8 +232,8 @@ def test_nonnormal_schur_residual_honest():
     coupling exceeds tol by orders of magnitude; the floor keeps the
     advertised ||A Q - Q R|| at tol level (validated against an f64
     ARPACK oracle: ours 2.4e-8 vs arpack 5.9e-6 at the same tol)."""
-    from arnoldimethod_tpu import partial_schur
-    from arnoldimethod_tpu.models.problems import convection_diffusion_2d
+    from arnoldimethod_jax import partial_schur
+    from arnoldimethod_jax.models.problems import convection_diffusion_2d
 
     nx = 32
     n = nx * nx

@@ -11,7 +11,7 @@ A (V Q')[:, :k] = (V Q')[:, :k] H'[:k, :k] + h v_new e_k^T still holds.
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu.dense import local_schur, reflector, restore_arnoldi, rotate_right
+from arnoldimethod_jax.dense import local_schur, reflector, restore_arnoldi, rotate_right
 from utils import is_hessenberg
 
 

@@ -5,7 +5,7 @@ explicitly materialized rotation matrix, for real and complex scalars."""
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu.dense import (
+from arnoldimethod_jax.dense import (
     givens,
     lmul2,
     lmul3,

@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from arnoldimethod_tpu import partial_eigen, partial_schur
+from arnoldimethod_jax import partial_eigen, partial_schur
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128])

@@ -6,7 +6,7 @@ convergence regressions 'from the wild', and exactly-repeated 2x2 blocks."""
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu.dense import (
+from arnoldimethod_jax.dense import (
     eigenvalues,
     is_offdiagonal_small,
     local_schur,

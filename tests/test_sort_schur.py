@@ -7,7 +7,7 @@ eigenvalues are a silent no-op."""
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu.dense import (
+from arnoldimethod_jax.dense import (
     eigenvalues,
     rotate_right,
     swap11,

@@ -1,12 +1,12 @@
 """Split-complex solves (complex matrices through real (re, im) pairs —
-the TPU path, ops/sc_expansion.py), validated on the CPU mesh against
+split_complex=True, ops/sc_expansion.py), validated on the CPU mesh against
 the plain complex path via partial_schur(..., split_complex=True)."""
 
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu import partial_schur
-from arnoldimethod_tpu.models.operators import SplitComplexDenseOperator
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models.operators import SplitComplexDenseOperator
 
 
 def _rand_complex(n, seed=0):
@@ -58,7 +58,7 @@ def test_sc_identical_counts_same_seed():
 
 def test_sc_warm_start():
     """start_from resumes a split-complex workspace (Vim round-trips)."""
-    from arnoldimethod_tpu.workspace import ArnoldiWorkspace
+    from arnoldimethod_jax.workspace import ArnoldiWorkspace
     import jax.numpy as jnp
 
     A = _rand_complex(40, 7)
@@ -102,7 +102,7 @@ def test_sc_state_invalidated_by_plain_solve():
     of a full-suite session segfaults inside backend_compile (an XLA
     bug keyed on accumulated session state, not on this program — the
     identical test passes in any shorter session)."""
-    from arnoldimethod_tpu.workspace import ArnoldiWorkspace
+    from arnoldimethod_jax.workspace import ArnoldiWorkspace
     import jax.numpy as jnp
 
     A = _rand_complex(40, 9)
@@ -122,7 +122,7 @@ def test_sc_sharded_mesh():
     """Split-complex composes with an 8-device mesh: the (re, im) pair
     shards like any real basis; counts match the single-device solve."""
     import jax.numpy as jnp
-    from arnoldimethod_tpu.parallel.mesh import make_mesh, basis_sharding
+    from arnoldimethod_jax.parallel.mesh import make_mesh, basis_sharding
 
     A = _rand_complex(48, 13)
     d0, h0 = partial_schur(A, nev=5, which="LM", tol=1e-9,
@@ -147,7 +147,7 @@ def test_sc_sparse_stencil_matvec_oracle():
     """Complex-coefficient Stencil5Operator: the fused matvec_sc equals
     the dense complex matrix-vector product."""
     import jax.numpy as jnp
-    from arnoldimethod_tpu.models.operators import Stencil5Operator
+    from arnoldimethod_jax.models.operators import Stencil5Operator
 
     ny, nx = 6, 5
     n = ny * nx
@@ -179,7 +179,7 @@ def test_sc_sparse_dia_solve_oracle():
     """dia_from_diagonals with complex values returns a
     SplitComplexOperator; a :LI solve through the sc path matches the
     dense numpy spectrum."""
-    from arnoldimethod_tpu.models.operators import (
+    from arnoldimethod_jax.models.operators import (
         SplitComplexOperator,
         dia_from_diagonals,
     )
@@ -209,11 +209,11 @@ def test_sc_sparse_dia_solve_oracle():
 
 def test_sc_sparse_csr_wrapped_solve():
     """A complex scipy-style CSR matrix through SplitComplexOperator over
-    two real CsrOperators (the as_operator TPU wiring, built directly so
-    the CPU suite exercises the exact operator type): spectrum matches
+    two real CsrOperators (built directly so the suite exercises the
+    exact operator type): spectrum matches
     the native complex CSR solve."""
     import scipy.sparse as sp
-    from arnoldimethod_tpu.models.operators import (
+    from arnoldimethod_jax.models.operators import (
         CsrOperator,
         SplitComplexOperator,
     )
@@ -247,7 +247,7 @@ def test_sc_sparse_csr_wrapped_solve():
 def test_sc_sparse_purely_imaginary_part():
     """A purely imaginary matrix (re part None) still solves: iL has
     spectrum i*lambda(L)."""
-    from arnoldimethod_tpu.models.operators import (
+    from arnoldimethod_jax.models.operators import (
         DiaOperator,
         SplitComplexOperator,
     )

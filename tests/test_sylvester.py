@@ -5,7 +5,7 @@ when the spectra of A and B coincide."""
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu.dense import solve_complete_pivot, sylv
+from arnoldimethod_jax.dense import solve_complete_pivot, sylv
 
 
 @pytest.mark.parametrize("p,q", [(2, 2), (2, 1), (1, 2), (1, 1)])

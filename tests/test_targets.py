@@ -4,7 +4,7 @@ conjugate pairs stay adjacent)."""
 
 import numpy as np
 
-from arnoldimethod_tpu.targets import LM, LR, SI, SR, as_target, get_order
+from arnoldimethod_jax.targets import LM, LR, SI, SR, as_target, get_order
 
 
 def test_target_parsing():

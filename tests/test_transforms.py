@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from arnoldimethod_tpu import partial_eigen, partial_schur
-from arnoldimethod_tpu.transforms import (
+from arnoldimethod_jax import partial_eigen, partial_schur
+from arnoldimethod_jax.transforms import (
     BInnerProductOperator,
     GeneralizedShiftInvertOperator,
 )
@@ -72,13 +72,13 @@ def test_chebyshev_filter_smallest_eigenvalues():
     """Chebyshev-filtered LM solve targets A's smallest eigenvalues with
     far fewer restarts than plain :SR; rayleigh_ritz recovers A's spectrum
     to near machine precision (BASELINE.json config-2 acceleration)."""
-    from arnoldimethod_tpu import (
+    from arnoldimethod_jax import (
         ChebyshevFilterOperator,
         partial_schur,
         power_bound,
         rayleigh_ritz,
     )
-    from arnoldimethod_tpu.models.problems import laplacian_2d
+    from arnoldimethod_jax.models.problems import laplacian_2d
 
     nx = 32
     op = laplacian_2d(nx, nx)
@@ -99,8 +99,8 @@ def test_chebyshev_filter_smallest_eigenvalues():
 
 def test_chebyshev_filter_matvec_is_polynomial():
     """p(A) x equals the explicit Chebyshev polynomial of the dense matrix."""
-    from arnoldimethod_tpu import ChebyshevFilterOperator
-    from arnoldimethod_tpu.models.operators import DenseOperator
+    from arnoldimethod_jax import ChebyshevFilterOperator
+    from arnoldimethod_jax.models.operators import DenseOperator
 
     rng = np.random.default_rng(0)
     A = rng.standard_normal((12, 12))
@@ -125,13 +125,13 @@ def test_estimate_interval_user_recipe():
     outputs only: a is above the wanted band, b bounds the spectrum, and
     the end-to-end filtered solve converges and recovers A's smallest
     eigenvalues (the exact recipe in docs/transforms.md)."""
-    from arnoldimethod_tpu import (
+    from arnoldimethod_jax import (
         ChebyshevFilterOperator,
         estimate_interval,
         partial_schur,
         rayleigh_ritz,
     )
-    from arnoldimethod_tpu.models.problems import laplacian_2d
+    from arnoldimethod_jax.models.problems import laplacian_2d
 
     nx = 32
     op = laplacian_2d(nx, nx)
@@ -157,7 +157,7 @@ def test_chebyshev_scaled_recurrence_matches_unscaled_direction():
     """The scaled recurrence returns T_k(L)x / T_k(t0): identical to the
     unscaled filter up to the scalar T_k(t0), so eigen-ordering and
     convergence behavior are unchanged while overflow becomes impossible."""
-    from arnoldimethod_tpu import ChebyshevFilterOperator
+    from arnoldimethod_jax import ChebyshevFilterOperator
 
     rng = np.random.default_rng(3)
     n = 24
@@ -181,7 +181,7 @@ def test_chebyshev_wraps_raw_matrices():
     """ChebyshevFilterOperator accepts raw arrays/lists: shape/dtype come
     from the WRAPPED operator (regression: they were read off the raw
     argument, crashing on lists and misreporting scipy dtypes)."""
-    from arnoldimethod_tpu import ChebyshevFilterOperator
+    from arnoldimethod_jax import ChebyshevFilterOperator
 
     fop = ChebyshevFilterOperator([[2.0, -1.0], [-1.0, 2.0]], 1.0, 4.0, 3)
     assert fop.shape == (2, 2)
@@ -193,7 +193,7 @@ def test_dense_eig_host_matches_lapack():
     """The in-house _dense_eig_host (Hessenberg + Francis QR +
     quasi-triangular eigenvectors) vs np.linalg.eig as oracle, real and
     complex, including conjugate pairs."""
-    from arnoldimethod_tpu.transforms import _dense_eig_host
+    from arnoldimethod_jax.transforms import _dense_eig_host
 
     rng = np.random.default_rng(11)
     for S in [
@@ -216,7 +216,7 @@ def test_orthonormalize_rows():
     input row space; rank-deficient rows replaced with fresh directions."""
     import jax
     import jax.numpy as jnp
-    from arnoldimethod_tpu.ops.expansion import orthonormalize_rows
+    from arnoldimethod_jax.ops.expansion import orthonormalize_rows
 
     rng = np.random.default_rng(5)
     X = jnp.asarray(rng.standard_normal((6, 40)), jnp.float32)
@@ -238,8 +238,8 @@ def test_orthonormalize_rows():
 def test_rayleigh_ritz_chunked_options():
     """rows_layout / return_vectors / chunk options agree with the plain
     column API on a symmetric operator."""
-    from arnoldimethod_tpu import rayleigh_ritz
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    from arnoldimethod_jax import rayleigh_ritz
+    from arnoldimethod_jax.models.problems import laplacian_1d
     import jax.numpy as jnp
 
     op = laplacian_1d(60)
@@ -271,7 +271,7 @@ def _periodic_symbol(N, s, cx, cy):
 def test_periodic_stencil_matvec_matches_symbol_spectrum():
     """The periodic Stencil5Operator is the 2-D circulant whose spectrum
     is the DFT symbol, and it is NORMAL despite nonsymmetric convection."""
-    from arnoldimethod_tpu.models import convection_diffusion_periodic_2d
+    from arnoldimethod_jax.models import convection_diffusion_periodic_2d
 
     N, s, cx, cy = 8, 0.13, 0.15, 0.08
     op = convection_diffusion_periodic_2d(N, cx=cx, cy=cy, scale=s)
@@ -289,8 +289,8 @@ def test_periodic_stencil_matvec_matches_symbol_spectrum():
 
 
 def test_circulant_shift_invert_matvec_oracle():
-    from arnoldimethod_tpu import CirculantShiftInvertOperator
-    from arnoldimethod_tpu.models import convection_diffusion_periodic_2d
+    from arnoldimethod_jax import CirculantShiftInvertOperator
+    from arnoldimethod_jax.models import convection_diffusion_periodic_2d
 
     N, s, cx, cy, sigma = 8, 0.13, 0.15, 0.08, 1.3
     op = convection_diffusion_periodic_2d(N, cx=cx, cy=cy, scale=s)
@@ -307,7 +307,7 @@ def test_circulant_shift_invert_matvec_oracle():
     y_ref = np.linalg.solve(A - sigma * np.eye(n), x)
     assert np.max(np.abs(y - y_ref)) < 1e-5
     # rejects non-periodic operators
-    from arnoldimethod_tpu.models.operators import Stencil5Operator
+    from arnoldimethod_jax.models.operators import Stencil5Operator
 
     with pytest.raises(ValueError, match="periodic"):
         CirculantShiftInvertOperator.build(
@@ -320,12 +320,12 @@ def test_circulant_shift_invert_lm_solve():
     convection-diffusion, FFT shift-invert near the top, :LM — converges
     the quadratically clustered edge with conjugate pairs, checked
     against the exact DFT symbol."""
-    from arnoldimethod_tpu import (
+    from arnoldimethod_jax import (
         CirculantShiftInvertOperator,
         partial_schur,
         rayleigh_ritz,
     )
-    from arnoldimethod_tpu.models import convection_diffusion_periodic_2d
+    from arnoldimethod_jax.models import convection_diffusion_periodic_2d
 
     N, s, cx, cy = 32, 0.13, 0.15, 0.08
     op = convection_diffusion_periodic_2d(N, cx=cx, cy=cy, scale=s)
@@ -354,13 +354,13 @@ def test_estimate_interval_lm_symmetric():
     """which='LM' interval recipe on the (symmetric) periodic Laplacian:
     the damped interval must cover the lower spectrum and the scale
     point must sit at the top edge (within power/Ritz accuracy)."""
-    from arnoldimethod_tpu import (
+    from arnoldimethod_jax import (
         ChebyshevFilterOperator,
         estimate_interval,
         partial_schur,
         rayleigh_ritz,
     )
-    from arnoldimethod_tpu.models import convection_diffusion_periodic_2d
+    from arnoldimethod_jax.models import convection_diffusion_periodic_2d
 
     N, s = 64, 0.13
     op = convection_diffusion_periodic_2d(N, cx=0.0, cy=0.0, scale=s)
@@ -388,29 +388,38 @@ def test_estimate_interval_lm_symmetric():
 
 
 def test_chebyshev_filter_preserves_periodic_boundary():
-    """Regression: the filter's internal auto-pallas stencil rebuild must
-    carry the boundary condition through — dropping it silently applied
-    the polynomial of the DIRICHLET operator to a periodic circulant
-    (measured 82% relative error at N=8 before the fix)."""
-    from arnoldimethod_tpu import ChebyshevFilterOperator
-    from arnoldimethod_tpu.models import convection_diffusion_periodic_2d
-    from arnoldimethod_tpu.models.operators import Stencil5Operator
+    """Regression: the filter must apply the polynomial of the operator it
+    was given — an earlier stencil rebuild inside the filter dropped the
+    periodic boundary and applied the DIRICHLET operator's polynomial.
+    Oracle: the scaled Chebyshev recurrence in float64 numpy over the
+    dense periodic matrix."""
+    from arnoldimethod_jax import ChebyshevFilterOperator
+    from arnoldimethod_jax.models import convection_diffusion_periodic_2d
 
     N = 8
     op = convection_diffusion_periodic_2d(N, cx=0.15, cy=0.08, scale=0.13)
     assert op.boundary == "periodic"
-    fop = ChebyshevFilterOperator(op, 0.5, 1.5, 4, scale_point=0.01)
-    assert fop.op.boundary == "periodic"
+    a, b, deg, lo = 0.5, 1.5, 4, 0.01
+    fop = ChebyshevFilterOperator(op, a, b, deg, scale_point=lo)
+    assert fop.op is op
 
-    # Oracle: the same filter over an operator the rebuild leaves alone
-    # (use_pallas=False skips the auto-pallas repin).
-    op2 = Stencil5Operator(op.coeffs, op.grid, dtype=op.dtype,
-                           use_pallas=False, boundary="periodic")
-    fop2 = ChebyshevFilterOperator(op2, 0.5, 1.5, 4, scale_point=0.01)
+    A = np.stack([
+        np.asarray(op.matvec(jnp.asarray(e, op.dtype)), np.float64)
+        for e in np.eye(N * N)
+    ], axis=1)
+    c, e = (a + b) / 2, (b - a) / 2
+    t0 = (lo - c) / e
+    sig = 1.0 / t0
     rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal(N * N), op.dtype)
-    y, y2 = np.asarray(fop.matvec(x)), np.asarray(fop2.matvec(x))
-    np.testing.assert_allclose(y, y2, rtol=1e-6, atol=1e-6)
+    x = rng.standard_normal(N * N)
+    ykm1, yk = x, sig * (A @ x - c * x) / e
+    for _ in range(deg - 1):
+        sig_next = 1.0 / (2.0 * t0 - sig)
+        ykm1, yk = yk, (2.0 * sig_next * (A @ yk - c * yk) / e
+                        - sig * sig_next * ykm1)
+        sig = sig_next
+    y = np.asarray(fop.matvec(jnp.asarray(x, op.dtype)), np.float64)
+    np.testing.assert_allclose(y, yk, rtol=1e-5, atol=1e-5)
 
 
 def test_circulant_shift_invert_rejects_complex_coeffs():
@@ -418,8 +427,8 @@ def test_circulant_shift_invert_rejects_complex_coeffs():
     is exact ONLY for a conjugate-symmetric (real-coefficient) symbol —
     complex coefficients must fail loudly, not return a truncated solve
     (measured 47% relative error before the fix)."""
-    from arnoldimethod_tpu import CirculantShiftInvertOperator
-    from arnoldimethod_tpu.models.operators import Stencil5Operator
+    from arnoldimethod_jax import CirculantShiftInvertOperator
+    from arnoldimethod_jax.models.operators import Stencil5Operator
 
     op = Stencil5Operator((4 + 2j, -1, -1 + 0.5j, -1, -1.25j), (8, 8),
                           boundary="periodic")
@@ -430,8 +439,8 @@ def test_circulant_shift_invert_rejects_complex_coeffs():
 def test_estimate_interval_validates_which_before_device_work():
     """A typo'd `which` must raise BEFORE the power bound / coarse
     Arnoldi pass — at 1M+ rows those are minutes of device work."""
-    from arnoldimethod_tpu import estimate_interval
-    from arnoldimethod_tpu.models.operators import FunctionOperator
+    from arnoldimethod_jax import estimate_interval
+    from arnoldimethod_jax.models.operators import FunctionOperator
 
     calls = []
 
@@ -449,7 +458,7 @@ def test_power_bound_complex_operator():
     """Regression: the power-iteration carry initialized its norm slot at
     the operator dtype — complex, while jnp.linalg.norm returns real —
     crashing the fori_loop with a carry-type mismatch."""
-    from arnoldimethod_tpu import power_bound
+    from arnoldimethod_jax import power_bound
 
     rng = np.random.default_rng(3)
     A = (rng.standard_normal((40, 40))
@@ -463,7 +472,7 @@ def test_power_bound_complex_operator():
 def test_rayleigh_ritz_skips_residuals_when_asked():
     """Regression: compute_residuals=False with return_vectors=True used
     to run the full residual pass anyway (an extra A@X device sweep)."""
-    from arnoldimethod_tpu import rayleigh_ritz
+    from arnoldimethod_jax import rayleigh_ritz
 
     rng = np.random.default_rng(4)
     A = rng.standard_normal((60, 60))

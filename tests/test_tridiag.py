@@ -8,13 +8,13 @@ reference's shift-invert docs recipe, docs/src/index.md:234-303)."""
 import numpy as np
 import pytest
 
-from arnoldimethod_tpu import partial_schur
-from arnoldimethod_tpu.models.operators import (
+from arnoldimethod_jax import partial_schur
+from arnoldimethod_jax.models.operators import (
     DiaOperator,
     TridiagonalShiftInvertOperator,
 )
-from arnoldimethod_tpu.models.problems import tridiagonal
-from arnoldimethod_tpu.ops.tridiag import factor_tridiagonal, tridiag_lu_solve
+from arnoldimethod_jax.models.problems import tridiagonal
+from arnoldimethod_jax.ops.tridiag import factor_tridiagonal, tridiag_lu_solve
 
 
 def _dense(dl, d, du):
@@ -167,7 +167,7 @@ def test_from_operator_split_complex_parts():
     complex values, which used to be rejected here — silently removing the
     CPU complex tridiagonal shift-invert workflow.  from_operator now
     recombines the (re, im) DiaOperator parts into complex bands."""
-    from arnoldimethod_tpu.models.operators import (
+    from arnoldimethod_jax.models.operators import (
         SplitComplexOperator,
         dia_from_diagonals,
     )
@@ -196,7 +196,7 @@ def test_from_operator_split_complex_parts():
 def test_split_complex_rejects_mismatched_parts():
     """The (re, im) parts must agree in shape and word dtype — a mismatch
     fails at construction, not as an XLA shape error inside matvec_sc."""
-    from arnoldimethod_tpu.models.operators import SplitComplexOperator
+    from arnoldimethod_jax.models.operators import SplitComplexOperator
 
     a = tridiagonal(8, -1.0, 2.0, -1.0, fmt="dia")
     b = tridiagonal(16, -1.0, 2.0, -1.0, fmt="dia")

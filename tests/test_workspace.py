@@ -5,7 +5,7 @@ start_from pattern, run.jl:131-179, across a process boundary)."""
 import numpy as np
 import jax.numpy as jnp
 
-from arnoldimethod_tpu import ArnoldiWorkspace, partial_schur
+from arnoldimethod_jax import ArnoldiWorkspace, partial_schur
 
 
 def test_save_load_resume(tmp_path):
@@ -34,7 +34,7 @@ def test_save_load_resume(tmp_path):
 
 
 def test_history_restart_counter():
-    from arnoldimethod_tpu.models.problems import laplacian_1d
+    from arnoldimethod_jax.models.problems import laplacian_1d
 
     op = laplacian_1d(100)
     _, hist = partial_schur(op, nev=10, which="SR", tol=1e-6)
